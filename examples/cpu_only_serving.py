@@ -1,16 +1,13 @@
 """CPU-only encrypted serving: no accelerator anywhere in the stack.
 
-The same framework that serves from the TPU MXU scan runs accelerator-free:
+The same framework that serves from the GPU bit-matmul scan runs
+accelerator-free:
 stage A goes through the native packed-word kernel
 (`ops/native/hamming_topl.c`, AVX-512 when present; picked automatically by
 ``runtime.scan_native="auto"`` whenever no accelerator backs the scan), and
 stages B/C are the host AES + BLAS paths that never needed a device.
 Results are bit-identical to device serving — a host can fail over
-TPU <-> CPU without a results change (tests/test_native_scan.py).
-
-Measured at 1M x 128-d on a single 2.1 GHz core: 71.2 q/s at recall@10
-0.9949 (the full parity operating point; bench.py with JAX_PLATFORMS=cpu),
-101.8x the reference baseline.
+GPU <-> CPU without a results change (tests/test_native_scan.py).
 
 Usage: JAX_PLATFORMS=cpu python examples/cpu_only_serving.py [n] [d] [q]
 """
@@ -24,8 +21,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# CPU-only by construction: overwrite the boot-injected platform before jax
-# initializes a backend (CLAUDE.md: env alone defaults are clobbered)
+# CPU-only by construction: pin the platform before jax initializes a
+# backend
 os.environ["JAX_PLATFORMS"] = "cpu"
 
 import jax
@@ -34,10 +31,10 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from fspann_tpu.api.system import ForwardSecureANNSystem
-from fspann_tpu.config import SystemConfig
-from fspann_tpu.io import groundtruth
-from fspann_tpu.ops import native_scan
+from fspann.api.system import ForwardSecureANNSystem
+from fspann.config import SystemConfig
+from fspann.io import groundtruth
+from fspann.ops import native_scan
 
 
 def main(n=20_000, d=32, q=32):

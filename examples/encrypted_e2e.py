@@ -6,16 +6,19 @@ rotation + selective re-encryption → query again → restore from disk.
 Usage: python examples/encrypted_e2e.py [n] [d] [q]
 """
 
+import os
 import shutil
 import sys
 import tempfile
 import time
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 import numpy as np
 
-from fspann_tpu.api.system import ForwardSecureANNSystem
-from fspann_tpu.config import SystemConfig
-from fspann_tpu.io import groundtruth
+from fspann.api.system import ForwardSecureANNSystem
+from fspann.config import SystemConfig
+from fspann.io import groundtruth
 
 
 def main(n=20_000, d=32, q=32):

@@ -1,8 +1,8 @@
 """Full mesh-serving lifecycle on a virtual 8-device mesh.
 
-Demonstrates the DistributedEncryptedSystem (the v5e-8 stretch
-configuration as a first-class API): streaming encrypted build, MXU-scan
-queries with the ICI merge, live insertion, deletion/undelete, forced key
+Demonstrates the DistributedEncryptedSystem (the multi-device stretch
+configuration as a first-class API): streaming encrypted build, bit-matmul
+scan queries with the all_gather merge, live insertion, deletion/undelete, forced key
 rotation with background-style migration, storage compaction, and
 checkpoint/restore — the complete single-chip lifecycle at mesh scale.
 
@@ -30,8 +30,8 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig
-from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+from fspann.config import SystemConfig, PaperConfig, RuntimeConfig
+from fspann.parallel.serving import DistributedEncryptedSystem
 
 
 def main():
@@ -62,7 +62,7 @@ def main():
           f"{sys_.size_bytes() / 1e6:.1f} MB ciphertext across "
           f"{sys_.store.num_shards} shard arenas")
 
-    # 2. query (per-shard MXU scan + ICI merge + host decrypt/refine)
+    # 2. query (per-shard scan + all_gather merge + host decrypt/refine)
     ids, dist = sys_.search_batch(queries, k)
     d2 = ((base[None] - queries[:, None]) ** 2).sum(-1)
     true_ids = np.argsort(d2, axis=1)[:, :k]

@@ -7,14 +7,17 @@ the minimum E2E slice of SURVEY.md §7 step 2.
 Usage: python examples/plaintext_ann.py [n] [d] [q]
 """
 
+import os
 import sys
 import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
 import jax.numpy as jnp
-from fspann_tpu.config import SystemConfig
-from fspann_tpu.ops import coding, partition, refine, routing
+from fspann.config import SystemConfig
+from fspann.ops import coding, partition, refine, routing
 
 
 def main(n=20_000, d=64, q=64, k=10, seed=13):

@@ -2,18 +2,21 @@
 
 Runs on whatever devices are available — set
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu``
-for a virtual 8-device mesh (the BASELINE v5e-8 stretch shape).
+for a virtual 8-device mesh.
 
 Usage: python examples/sharded_serving.py [n] [d] [q]
 """
 
+import os
 import sys
 import time
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 import numpy as np
 
-from fspann_tpu.ops import coding, refine
-from fspann_tpu.parallel.sharded import ShardedIndex, make_mesh
+from fspann.ops import coding, refine
+from fspann.parallel.sharded import ShardedIndex, make_mesh
 
 
 def main(n=100_000, d=64, q=64, k=10):

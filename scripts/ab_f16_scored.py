@@ -22,8 +22,8 @@ import numpy as np
 
 
 def build_store(work, tag, dtype, vecs):
-    from fspann_tpu.crypto.keys import KeyManager
-    from fspann_tpu.store.point_store import PointStore
+    from fspann.crypto.keys import KeyManager
+    from fspann.store.point_store import PointStore
 
     km = KeyManager(os.path.join(work, f"ks_{tag}.blob"))
     store = PointStore(os.path.join(work, f"db_{tag}"), km, dim=vecs.shape[1],

@@ -23,8 +23,8 @@ _WORKER = r"""
 import os, sys, time
 sys.path.insert(0, {root!r})
 import numpy as np
-from fspann_tpu.crypto.keys import KeyManager
-from fspann_tpu.store.point_store import PointStore
+from fspann.crypto.keys import KeyManager
+from fspann.store.point_store import PointStore
 
 work, dtype, n, opens, q = {work!r}, {dtype!r}, {n}, {opens}, 64
 km = KeyManager(os.path.join(work, "ks.blob"))
@@ -56,8 +56,8 @@ def main():
     work = tempfile.mkdtemp(prefix="fspann_pf_")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     try:
-        from fspann_tpu.crypto.keys import KeyManager
-        from fspann_tpu.store.point_store import PointStore
+        from fspann.crypto.keys import KeyManager
+        from fspann.store.point_store import PointStore
 
         km = KeyManager(os.path.join(work, "ks.blob"))
         store = PointStore(os.path.join(work, "db"), km, dim=128,

@@ -35,9 +35,9 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def main():
-    from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig
-    from fspann_tpu.io import synthetic
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.config import SystemConfig, PaperConfig, RuntimeConfig
+    from fspann.io import synthetic
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n = int(os.environ.get("MESH_N", 200_000))
     d = int(os.environ.get("MESH_D", 64))

@@ -33,9 +33,9 @@ def main():
     q = int(os.environ.get("EPOCH_Q", 192))
     mode = os.environ.get("EPOCH_MODE", "scan")
 
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import SystemConfig
-    from fspann_tpu.io import groundtruth, synthetic
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import SystemConfig
+    from fspann.io import groundtruth, synthetic
 
     base, queries = synthetic.lsh_hard_corpus(n, d, q, seed=42)
     cfg = SystemConfig()
@@ -79,7 +79,7 @@ def main():
         a2 = phase("rotate_mixed")        # mixed-version serving
 
         # background daemon migrating under live queries
-        from fspann_tpu.crypto.rotation import BackgroundReencryption
+        from fspann.crypto.rotation import BackgroundReencryption
         bg = BackgroundReencryption(s.rotation, interval_s=0.05,
                                     batch=20_000, load_shed_qps=1e9)
         bg.start()

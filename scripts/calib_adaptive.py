@@ -24,10 +24,10 @@ M = int(os.environ.get("CAL_M", 64))
 
 
 def main():
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import (SystemConfig, PaperConfig, RuntimeConfig,
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import (SystemConfig, PaperConfig, RuntimeConfig,
                                    EvalConfig)
-    from fspann_tpu.io import synthetic, groundtruth
+    from fspann.io import synthetic, groundtruth
 
     base, queries = synthetic.lsh_hard_corpus(N, D, Q, seed=42)
     cfg = SystemConfig(

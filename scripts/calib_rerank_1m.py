@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """1M hard-corpus rerank calibration: build ONE index (tables 8, block 128),
 then sweep query-time (probes, refinement, rerank budget) operating points.
-Recall/ratio are platform-independent; run with JAX_PLATFORMS=cpu when the
-TPU is flaky."""
+Recall/ratio are platform-independent; JAX_PLATFORMS=cpu runs it without
+the GPU."""
 import dataclasses
 import json
 import shutil
@@ -17,9 +17,9 @@ N, D, Q = 1_000_000, 128, 192
 
 
 def main():
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig, EvalConfig
-    from fspann_tpu.io import synthetic, groundtruth
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import SystemConfig, PaperConfig, RuntimeConfig, EvalConfig
+    from fspann.io import synthetic, groundtruth
 
     base, queries = synthetic.lsh_hard_corpus(N, D, Q, seed=42)
     cfg = SystemConfig(

@@ -58,7 +58,7 @@ def emit(row):
 
 
 def gen(fam, knob):
-    from fspann_tpu.io import synthetic
+    from fspann.io import synthetic
 
     if fam == "glove":
         # CAL_GLOVE_KNOB=norm_sigma sweeps the lognormal norm spread
@@ -81,7 +81,7 @@ def main():
     fam_mod.N, fam_mod.NQ = N, NQ             # keep row metadata honest
     fam_mod.OUT = OUT
 
-    from fspann_tpu.io import groundtruth
+    from fspann.io import groundtruth
 
     fams = sys.argv[1:] or list(TARGETS)
     for fam in fams:

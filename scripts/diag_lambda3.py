@@ -119,7 +119,7 @@ def routing_recall(table, codes_q, keys_q, base, queries, gt, probes,
     """Probe walk -> exact L2 rerank on plaintext -> recall@k."""
     import jax.numpy as jnp
 
-    from fspann_tpu.ops import routing
+    from fspann.ops import routing
 
     tomb = jnp.zeros(len(base), bool)
     res = routing.route(table, jnp.asarray(codes_q), jnp.asarray(keys_q),
@@ -139,8 +139,8 @@ def routing_recall(table, codes_q, keys_q, base, queries, gt, probes,
 def main():
     fam = sys.argv[1] if len(sys.argv) > 1 else "glove"
     geom = GEOM[fam]
-    from fspann_tpu.io import groundtruth, synthetic
-    from fspann_tpu.ops import coding, partition, routing
+    from fspann.io import groundtruth, synthetic
+    from fspann.ops import coding, partition, routing
 
     t0 = time.time()
     if fam == "glove":

@@ -72,7 +72,7 @@ def emit(row):
 
 
 def gen_corpus(fam, d):
-    from fspann_tpu.io import synthetic
+    from fspann.io import synthetic
 
     if fam == "glove":
         return synthetic.glove_like_corpus(N, d, NQ)
@@ -118,9 +118,9 @@ def oracle_recall(bucket_of, gt, probes, k):
 
 
 def main():
-    from fspann_tpu.config import load_config
-    from fspann_tpu.io import groundtruth
-    from fspann_tpu.ops import coding
+    from fspann.config import load_config
+    from fspann.io import groundtruth
+    from fspann.ops import coding
 
     fams = sys.argv[1:] or list(FAMILIES)
     for fam in fams:

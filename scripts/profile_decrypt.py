@@ -24,10 +24,10 @@ def main():
 
     import tempfile
     import shutil
-    from fspann_tpu.crypto.keys import KeyManager
-    from fspann_tpu.store.point_store import PointStore, TAG_LEN
-    from fspann_tpu.crypto import aesgcm
-    from fspann_tpu.types import aad_batch
+    from fspann.crypto.keys import KeyManager
+    from fspann.store.point_store import PointStore, TAG_LEN
+    from fspann.crypto import aesgcm
+    from fspann.types import aad_batch
 
     work = tempfile.mkdtemp(prefix="fspann_prof_")
     try:

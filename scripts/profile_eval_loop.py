@@ -1,5 +1,5 @@
 """Profile the host-side serving+eval loop (everything EXCEPT the device
-route, which the pipelined TPU path hides): where do the non-stage
+route, which the pipelined device path hides): where do the non-stage
 milliseconds per query go?
 
 Runs a small-code CPU corpus (cheap route) at the parity decrypt shape
@@ -20,9 +20,9 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax
 jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
-from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig
-from fspann_tpu.api.system import ForwardSecureANNSystem
-from fspann_tpu.io import groundtruth, synthetic
+from fspann.config import SystemConfig, PaperConfig, RuntimeConfig
+from fspann.api.system import ForwardSecureANNSystem
+from fspann.io import groundtruth, synthetic
 
 
 def main():

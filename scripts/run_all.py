@@ -25,8 +25,8 @@ sys.path.insert(0, ".")
 
 
 def run_profile(cfg, base, queries, out_dir, profile, gtm=None):
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.io import groundtruth
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.io import groundtruth
 
     work = tempfile.mkdtemp(prefix=f"fspann_{profile}_")
     try:
@@ -79,8 +79,8 @@ def main():
     ap.add_argument("--out", default="results/sweep")
     args = ap.parse_args()
 
-    from fspann_tpu.config import load_config
-    from fspann_tpu.io import loaders
+    from fspann.config import load_config
+    from fspann.io import loaders
 
     data = json.load(open(args.config))
     profiles = list(data.get("profiles", {}))
@@ -90,7 +90,7 @@ def main():
         profiles = [p for p in profiles if p in args.profiles.split(",")]
 
     if args.synthetic:
-        from fspann_tpu.io import synthetic
+        from fspann.io import synthetic
         gen = synthetic.lsh_hard_corpus if args.corpus == "hard" \
             else synthetic.easy_corpus
         base, queries = gen(args.synthetic, args.d, args.query_limit, seed=42)
@@ -100,7 +100,7 @@ def main():
                              np.float32)[:args.query_limit]
 
     os.makedirs(args.out, exist_ok=True)
-    from fspann_tpu.io import groundtruth
+    from fspann.io import groundtruth
     t0 = time.time()
     gtm = groundtruth.precompute(base, queries, k=100)
     print(f"GT precompute: {time.time()-t0:.1f}s", flush=True)

@@ -126,8 +126,8 @@ def recall(ids, gt, k):
 
 
 def main():
-    from fspann_tpu.config import SystemConfig
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.config import SystemConfig
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     cfg = SystemConfig()
     cfg = dataclasses.replace(
@@ -139,7 +139,7 @@ def main():
             adaptive_decrypt_margin=40, block_size=128,
             scan_packed="on",              # the stretch layout under test
             # emulated mesh: the host 2-key merge (bit-identical to the
-            # ICI merge — tests/test_distributed_serving.py) avoids
+            # device merge — tests/test_distributed_serving.py) avoids
             # XLA:CPU's 40s in-process rendezvous abort, which a 10M-row
             # per-shard scan on a 1-core host trips nondeterministically
             mesh_merge=os.environ.get("STRETCH_MERGE", "host"),

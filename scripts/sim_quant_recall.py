@@ -1,6 +1,6 @@
 """Simulate the recall cost of quantized ciphertext payloads at the parity
 operating point, WITHOUT building stores: candidates = exact top-L per query
-(the MXU scan at parity is near-exact at L=2000), final top-k re-scored from
+(the bit-matmul scan at parity is near-exact at L=2000), final top-k re-scored from
 the quantized candidate rows vs the f32 query — exactly the error path of
 storage_dtype != f32 (the store quantizes rows before sealing; the fused C
 open dequantizes and scores).
@@ -84,7 +84,7 @@ def main():
     L = int(sys.argv[3]) if len(sys.argv) > 3 else 2000
     d, k = 128, 10
 
-    from fspann_tpu.io import groundtruth, synthetic
+    from fspann.io import groundtruth, synthetic
 
     t0 = time.perf_counter()
     base, queries = synthetic.lsh_hard_corpus(n, d, nq, seed=42)

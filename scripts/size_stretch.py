@@ -1,67 +1,55 @@
 #!/usr/bin/env python
-"""Sizing model for the v5e-8 stretch configuration (BASELINE.json config 5:
-100M × 768-d RAG corpus, distributed routing + cross-chip merge).
+"""Byte sizing of the multi-GPU stretch configuration (BASELINE.json
+config 5: 100M × 768-d RAG corpus, distributed routing + cross-device merge).
 
-Grounded in round-2 MEASUREMENTS on one v5e chip (bench_results/):
-  - MXU Hamming scan: 1M×1152 bits in 13.8 ms / 64-query batch (incl.
-    top-L) => ~0.19 ms per 1e9 bit-MACs column-block; scales linearly in N
-    (measured 10M: ~56 ms/batch at 864 bits).
-  - host AES-GCM open: ~1.9 GB/s per core (VAES kernel), FSPANN_THREADS
-    scales across cores.
-  - ICI all_gather of L (id,score) pairs per shard: negligible (≤ 2 MB).
+Bytes only, from shapes: the scan state per card, the chunk scratch, the
+collective payload and the host ciphertext.  No time is modelled — times
+come from runs on the card (PERF.md).
 
-Usage: python scripts/size_stretch.py [N] [D] [chips]
+Usage: python scripts/size_stretch.py [N] [D] [cards]
 """
 import sys
 
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000_000
 D = int(sys.argv[2]) if len(sys.argv) > 2 else 768
-CHIPS = int(sys.argv[3]) if len(sys.argv) > 3 else 8
+CARDS = int(sys.argv[3]) if len(sys.argv) > 3 else 4
 
-# round-3 parity config: tables=8, m=64 ⇒ 3,072-bit codes (the quality
-# point measured at recall@10 0.9949 on the 1M hard instance)
+# served config: tables=8, m=64 ⇒ 3,072-bit codes
 G, M, LAM = 8 * 3, 64, 2
 B = G * M * LAM                     # code bits/point
 Q, L = 64, 2000                     # query batch, decrypt budget
 CHUNK = 1 << 19                     # packed-scan chunk rows
-HBM_PER_CHIP = 16e9                 # v5e
+MEM_PER_CARD = 80e9                 # H100 80GB
+USABLE = 0.75                       # JAX's default preallocation fraction
 
-rows = -(-N // CHIPS)
+rows = -(-N // CARDS)
 bits_bytes = rows * B               # int8 unpacked: 1 byte/bit
 words_bytes = rows * B // 8         # packed uint32 layout (scan_packed)
 scratch = CHUNK * B + Q * CHUNK * 8  # per-chunk unpack + dots/rank scratch
-scan_ms = 13.8 * (rows / 1e6) * (B / 1152)   # measured 1M×1152 scaling
-packed_ms = scan_ms * 2.1           # ~2.1x HBM traffic (words+scratch+dot)
+flat_scratch = Q * rows * 12        # [Q, rows] dots + rank + ids (flat scan)
 ct_bytes = N * (D * 4 + 46)         # record = payload + iv/tag/header
-ici_mb = CHIPS * Q * L * 8 / 1e6
-AES_BW = 1.9e9                      # host fused decrypt+score B/s per core
-aes_ms_per_core = L * (D * 4 + 46) / AES_BW * 1e3  # per query
+merge_mb = CARDS * Q * L * 8 / 1e6
 
-unp = "fits" if bits_bytes <= HBM_PER_CHIP * 0.9 else "OVER"
+budget = MEM_PER_CARD * USABLE
+unp = "fits" if bits_bytes + flat_scratch <= budget else "OVER"
 pk_total = words_bytes + scratch
-pk = "FITS" if pk_total <= HBM_PER_CHIP * 0.9 else "OVER"
-print(f"stretch config: N={N:,} D={D} chips={CHIPS} "
+pk = "fits" if pk_total <= budget else "OVER"
+print(f"stretch config: N={N:,} D={D} cards={CARDS} "
       f"(code bits B={B}, L={L})")
-print(f"  rows/chip:            {rows:,}")
-print(f"  unpacked bit matrix:  {bits_bytes/1e9:.2f} GB int8/chip — {unp} "
-      f"(16 GB HBM)")
+print(f"  rows/card:            {rows:,}")
+print(f"  unpacked bit matrix:  {bits_bytes/1e9:.2f} GB int8 + "
+      f"{flat_scratch/1e9:.2f} GB flat-scan scratch per card — {unp} "
+      f"({budget/1e9:.0f} GB usable of {MEM_PER_CARD/1e9:.0f} GB)")
 print(f"  PACKED scan state:    {words_bytes/1e9:.2f} GB words + "
       f"{scratch/1e9:.2f} GB chunk scratch = {pk_total/1e9:.2f} GB — {pk} "
-      f"(scan_packed=auto picks this; executable path, "
-      f"tests/test_distributed_serving.py::test_mesh_packed_*)")
-print(f"  scan compute/chip:    {scan_ms:.1f} ms unpacked / "
-      f"{packed_ms:.1f} ms packed per {Q}-query batch "
-      f"({packed_ms/Q:.2f} ms/query packed)")
-print(f"  ICI merge payload:    {ici_mb:.1f} MB / batch (all_gather)")
+      f"(scan_packed=auto picks it when the unpacked matrix does not fit)")
+print(f"  scan bytes read:      {bits_bytes/1e9:.2f} GB unpacked / "
+      f"~{2 * words_bytes / 1e9 + bits_bytes / 1e9:.2f} GB packed "
+      f"(words + unpack scratch write + read) per {Q}-query batch")
+print(f"  merge payload:        {merge_mb:.1f} MB / batch (all_gather)")
 ct_f16 = N * (D * 2 + 46)
 ct_i8 = N * (D + 4 + 46)
 print(f"  ciphertext (hosts):   {ct_bytes/1e9:.0f} GB sharded arenas f32 "
-      f"/ {ct_f16/1e9:.0f} GB f16 / {ct_i8/1e9:.0f} GB i8 "
-      f"(storage_dtype; i8 recall cost ~1.5 pt @10, measured 200k)")
-print(f"  AES decrypt/query:    {aes_ms_per_core:.1f} ms/core f32, "
-      f"{L * (D + 4 + 46) / AES_BW * 1e3:.1f} ms/core i8 "
-      f"(/= FSPANN_THREADS; adaptive margin cuts ~18% of opens)")
-print(f"  chunked scan keeps intermediates at [Q, {CHUNK}] — no Q "
-      f"sub-batching needed at any rows/chip")
-print(f"  int4 bit-matmul would cut packed traffic ~2x further when XLA "
-      f"lowers it (watch item)")
+      f"/ {ct_f16/1e9:.0f} GB f16 / {ct_i8/1e9:.0f} GB i8 (storage_dtype)")
+print(f"  AES bytes opened:     {L * (D * 2 + 46) / 1e3:.0f} kB/query f16 "
+      f"at the full budget L")

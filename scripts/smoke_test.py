@@ -44,9 +44,9 @@ def main():
                          "SIFT-calibrated gates trivially)")
     args = ap.parse_args()
 
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import load_config
-    from fspann_tpu.io import groundtruth, loaders
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import load_config
+    from fspann.io import groundtruth, loaders
 
     if args.config:
         cfg = load_config(args.config, args.profile)
@@ -71,7 +71,7 @@ def main():
         queries = np.asarray(loaders.load_vectors(args.queries),
                              np.float32)[:args.query_limit]
     else:
-        from fspann_tpu.io import synthetic
+        from fspann.io import synthetic
         gen = synthetic.lsh_hard_corpus if args.corpus == "hard" \
             else synthetic.easy_corpus
         base, queries = gen(args.n, args.d, args.query_limit, seed=3)

@@ -14,7 +14,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from fspann_tpu.ops import coding, hamming_scan
+from fspann.ops import coding, hamming_scan
 
 
 def _mk(rng, n=500, d=24, m=10, lam=2, tables=2, divisions=2, seed=3):
@@ -114,10 +114,10 @@ def test_n_dec_counts_only_live_rows(rng):
 def small_system(tmp_path_factory):
     import jax
 
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import (SystemConfig, PaperConfig, RuntimeConfig,
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import (SystemConfig, PaperConfig, RuntimeConfig,
                                    EvalConfig)
-    from fspann_tpu.io import synthetic, groundtruth
+    from fspann.io import synthetic, groundtruth
 
     del jax  # platform forced by conftest
     rng = np.random.default_rng(5)
@@ -223,7 +223,7 @@ def test_run_queries_aggregates_only_own_rows(small_system):
 
 
 def test_config_validation():
-    from fspann_tpu.config import SystemConfig, RuntimeConfig
+    from fspann.config import SystemConfig, RuntimeConfig
 
     with pytest.raises(ValueError):
         SystemConfig(runtime=RuntimeConfig(

@@ -6,13 +6,13 @@ import time
 import numpy as np
 import pytest
 
-from fspann_tpu.crypto.keys import KeyManager
-from fspann_tpu.crypto.keyutils import key_from_bytes, try_decrypt
-from fspann_tpu.query.diagnostics import QueryDiagnostics
-from fspann_tpu.store.sharded_store import ShardedPointStore
-from fspann_tpu.utils.cache import ExpiringCache, LRUCache
-from fspann_tpu.utils.metrics import MetricsRegistry
-from fspann_tpu.utils.storage_metrics import StorageMetrics
+from fspann.crypto.keys import KeyManager
+from fspann.crypto.keyutils import key_from_bytes, try_decrypt
+from fspann.query.diagnostics import QueryDiagnostics
+from fspann.store.sharded_store import ShardedPointStore
+from fspann.utils.cache import ExpiringCache, LRUCache
+from fspann.utils.metrics import MetricsRegistry
+from fspann.utils.storage_metrics import StorageMetrics
 
 
 def test_lru_cache():
@@ -133,7 +133,7 @@ def test_sharded_store_retire_version_visits_every_shard(tmp_path, rng):
     short-circuit left later eligible shards unretired (review finding)."""
     import os
 
-    from fspann_tpu.crypto.keys import KeyManager
+    from fspann.crypto.keys import KeyManager
     km = KeyManager(str(tmp_path / "ks.blob"))
     s = ShardedPointStore(str(tmp_path / "db"), km, dim=8, num_shards=3)
     ids = np.arange(60)
@@ -156,7 +156,7 @@ def test_sharded_store_retire_version_visits_every_shard(tmp_path, rng):
 
 
 def test_sharded_store_probe_shards(tmp_path, rng):
-    from fspann_tpu.crypto.keys import KeyManager
+    from fspann.crypto.keys import KeyManager
     km = KeyManager(str(tmp_path / "ks.blob"))
     s = ShardedPointStore(str(tmp_path / "db"), km, dim=8, num_shards=4)
     vecs = rng.normal(size=(64, 8)).astype(np.float32)

@@ -5,7 +5,7 @@ import json
 import numpy as np
 import pytest
 
-from fspann_tpu.api import cli
+from fspann.api import cli
 
 
 def write_fvecs(path, arr):

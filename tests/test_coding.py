@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fspann_tpu.ops import coding
+from fspann.ops import coding
 from oracles import oracle_h, oracle_code_bits, oracle_pack, oracle_key
 
 

@@ -5,7 +5,7 @@ import warnings
 
 import pytest
 
-from fspann_tpu.config import SystemConfig, load_config
+from fspann.config import SystemConfig, load_config
 
 
 def test_defaults():
@@ -107,7 +107,7 @@ def test_routing_mode_alias_and_validation():
 
     import pytest
 
-    from fspann_tpu.config import SystemConfig, RuntimeConfig, load_config
+    from fspann.config import SystemConfig, RuntimeConfig, load_config
 
     with tempfile.NamedTemporaryFile("w", suffix=".json") as f:
         json.dump({"runtime": {"routingMode": "scan", "rerankLimit": 2000}}, f)

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from fspann_tpu.crypto import aesgcm
-from fspann_tpu.crypto.keys import KeyManager
+from fspann.crypto import aesgcm
+from fspann.crypto.keys import KeyManager
 
 
 def test_nist_vectors():
@@ -149,7 +149,7 @@ def test_long_message_cross_check_vs_cryptography_lib():
     pytest.importorskip("cryptography")
     import secrets
     from cryptography.hazmat.primitives.ciphers.aead import AESGCM
-    from fspann_tpu.crypto.aesgcm import GcmKey
+    from fspann.crypto.aesgcm import GcmKey
 
     rng = np.random.default_rng(0)
     for length in (16, 255, 256, 257, 512, 528, 1000, 4096):
@@ -168,7 +168,7 @@ def test_multithreaded_batch_open_identical(tmp_path, monkeypatch):
     ranges — results must be bit-identical to single-threaded, including
     per-record failures."""
     import secrets
-    from fspann_tpu.store.point_store import PointStore
+    from fspann.store.point_store import PointStore
 
     km = KeyManager(str(tmp_path / "ks.blob"))
     s = PointStore(str(tmp_path / "db"), km, dim=16)

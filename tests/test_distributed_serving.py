@@ -1,6 +1,6 @@
 """Distributed encrypted serving: device-sharded routing + shard-aligned
-host ciphertext stores (the v5e-8 stretch configuration of BASELINE.json,
-exercised on the virtual 8-device CPU mesh)."""
+host ciphertext stores (the multi-device stretch configuration of
+BASELINE.json, exercised on the virtual 8-device CPU mesh)."""
 
 import numpy as np
 import pytest
@@ -8,10 +8,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fspann_tpu.crypto.keys import KeyManager
-from fspann_tpu.ops import coding, refine, routing
-from fspann_tpu.parallel.sharded import ShardedIndex, make_mesh
-from fspann_tpu.store.sharded_store import ShardedPointStore
+from fspann.crypto.keys import KeyManager
+from fspann.ops import coding, refine, routing
+from fspann.parallel.sharded import ShardedIndex, make_mesh
+from fspann.store.sharded_store import ShardedPointStore
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multi-device mesh")
@@ -78,8 +78,8 @@ def test_sharded_encrypted_pipeline(tmp_path, rng):
 def test_distributed_encrypted_system_facade(tmp_path, rng):
     """DistributedEncryptedSystem: build (no plaintext kept in HBM) ->
     encrypted search -> rotation leaves results bit-identical."""
-    from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.config import SystemConfig, PaperConfig, RuntimeConfig
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, q, k = 2048, 16, 6, 10
     centers = rng.normal(size=(16, d)).astype(np.float32) * 5
@@ -162,8 +162,8 @@ def test_distributed_system_rerank_recall(tmp_path, rng):
     """DistributedEncryptedSystem with rerank: the truncated decrypt set
     still recovers the true neighbors."""
     import dataclasses
-    from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.config import SystemConfig, PaperConfig, RuntimeConfig
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, q, k = 2048, 16, 6, 10
     centers = rng.normal(size=(16, d)).astype(np.float32) * 5
@@ -192,9 +192,9 @@ def test_distributed_system_rerank_recall(tmp_path, rng):
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multi-device mesh")
 def test_mesh_scan_matches_single_device_oracle(rng):
-    """Sharded MXU scan (exact variant) == numpy global fine-Hamming
+    """Sharded bit-matmul scan (exact variant) == numpy global fine-Hamming
     ranking — per-shard top-L + merge is exact."""
-    from fspann_tpu.ops import hamming_scan
+    from fspann.ops import hamming_scan
 
     n, d = 1024, 16
     base = rng.normal(size=(n, d)).astype(np.float32) * 3
@@ -227,8 +227,8 @@ def test_distributed_system_scan_recall(tmp_path, rng):
     """DistributedEncryptedSystem in scan mode: encrypted mesh serving with
     the per-shard bit-matmul stage A."""
     import dataclasses
-    from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.config import SystemConfig, PaperConfig, RuntimeConfig
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, q, k = 2048, 16, 6, 10
     centers = rng.normal(size=(16, d)).astype(np.float32) * 5
@@ -335,8 +335,8 @@ def test_distributed_index_stream_encrypted(tmp_path, rng):
     """Facade streaming path: encrypt+persist per chunk from a TRUE
     generator (no len), then serve with the mesh scan — recall vs brute
     force, ciphertexts shard-aligned."""
-    from fspann_tpu.config import (SystemConfig, PaperConfig, RuntimeConfig)
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.config import (SystemConfig, PaperConfig, RuntimeConfig)
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, q, k = 2048, 16, 6, 10
     centers = rng.normal(size=(16, d)).astype(np.float32) * 5
@@ -375,7 +375,7 @@ def test_distributed_index_stream_encrypted(tmp_path, rng):
 
 
 def _scan_cfg(d):
-    from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig
+    from fspann.config import SystemConfig, PaperConfig, RuntimeConfig
     return SystemConfig(
         paper=PaperConfig(m=8, lam=2, divisions=2, tables=3, seed=13),
         runtime=RuntimeConfig(refinement_limit=512,
@@ -417,7 +417,7 @@ def test_distributed_insert_live_searchable_and_rotatable(tmp_path, rng):
     """Facade: insert_live rows are immediately searchable on the mesh,
     land on the correct shard arenas, and key rotation stays orthogonal
     (recall unchanged across rotate+migrate)."""
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, k = 1600, 16, 5
     centers = rng.normal(size=(12, d)).astype(np.float32) * 6
@@ -489,7 +489,7 @@ def test_mesh_checkpoint_from_bits_only(tmp_path, rng):
 
 
 def test_distributed_facade_checkpoint_restore(tmp_path, rng):
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, k = 1200, 16, 5
     base = rng.normal(size=(n, d)).astype(np.float32) * 4
@@ -516,7 +516,7 @@ def test_mesh_deletion_excluded_and_restored(tmp_path, rng):
     """Mesh deletion: tombstoned rows vanish from scan results without any
     rebuild, survive checkpoint restore (re-derived from the shard
     stores), and deletion composes with live insert."""
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, k = 1200, 16, 5
     base = rng.normal(size=(n, d)).astype(np.float32) * 4
@@ -580,8 +580,8 @@ def test_mesh_background_migration_daemon(tmp_path, rng):
     ciphertexts shard-transparently and serving results are unchanged."""
     import dataclasses
 
-    from fspann_tpu.crypto.rotation import BackgroundReencryption
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.crypto.rotation import BackgroundReencryption
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, k = 800, 16, 5
     base = rng.normal(size=(n, d)).astype(np.float32) * 4
@@ -609,7 +609,7 @@ def test_mesh_background_migration_daemon(tmp_path, rng):
 
 
 def test_mesh_undelete_roundtrip(tmp_path, rng):
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, k = 800, 16, 5
     base = rng.normal(size=(n, d)).astype(np.float32) * 4
@@ -652,7 +652,7 @@ def test_mesh_checkpoint_after_live_insert(tmp_path, rng):
 
 
 def test_mesh_compact_storage_reclaims(tmp_path, rng):
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, k = 600, 16, 5
     base = rng.normal(size=(n, d)).astype(np.float32) * 4
@@ -681,7 +681,7 @@ def test_mesh_adaptive_decrypt_budget(tmp_path, rng):
     margin cuts the ids fanned out to the sharded AES open at near-equal
     recall (mirrors the single-chip tests in test_adaptive_decrypt.py)."""
     import dataclasses
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, q, k = 2048, 16, 8, 10
     centers = rng.normal(size=(16, d)).astype(np.float32) * 5
@@ -729,8 +729,8 @@ def test_mesh_packed_scan_matches_unpacked(rng):
     """keep_bits="packed" (8x-less-HBM word layout, per-shard chunked
     unpack) must reproduce the unpacked mesh scan bit-exactly — including
     deletions and live inserts."""
-    from fspann_tpu.ops import coding
-    from fspann_tpu.parallel.sharded import ShardedIndex, make_mesh
+    from fspann.ops import coding
+    from fspann.parallel.sharded import ShardedIndex, make_mesh
 
     n, d = 1024, 16
     base = rng.normal(size=(n, d)).astype(np.float32) * 4
@@ -774,8 +774,8 @@ def test_mesh_packed_facade_and_checkpoint(tmp_path, rng):
     with 'off', checkpoint/restore keeps the packed layout (save_state
     writes the words directly — no bit repack)."""
     import dataclasses
-    from fspann_tpu.ops import hamming_scan as hs
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.ops import hamming_scan as hs
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, q, k = 900, 16, 5, 10
     base = rng.normal(size=(n, d)).astype(np.float32) * 4
@@ -816,8 +816,8 @@ def test_mesh_search_batches_pipelined_matches_sequential(tmp_path, rng):
     """The pipelined mesh serving loop (dispatch batch i+1 before batch i's
     host consume, async D2H in flight) is result-identical to per-batch
     search_batch calls, in both scan and probe routing modes."""
-    from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.config import SystemConfig, PaperConfig, RuntimeConfig
+    from fspann.parallel.serving import DistributedEncryptedSystem
 
     n, d, k = 1536, 16, 8
     base = rng.normal(size=(n, d)).astype(np.float32) * 3
@@ -853,7 +853,7 @@ def test_mesh_search_batches_pipelined_matches_sequential(tmp_path, rng):
 @pytest.mark.parametrize("layout", [True, "packed"])
 def test_host_merge_matches_ici_merge(rng, layout):
     """merge_backend="host" (sharded per-shard top-Ls + host 2-key merge,
-    no collective in the query step) is bit-identical to the ICI
+    no collective in the query step) is bit-identical to the device
     all_gather merge — packed and unpacked layouts, with tombstones and
     live-insert headroom in play."""
     n, d, q, L = 1500, 12, 5, 64
@@ -867,14 +867,14 @@ def test_host_merge_matches_ici_merge(rng, layout):
     idx.build(base, keep_base=False, keep_bits=layout, capacity=n + 128)
     idx.mark_deleted(np.arange(0, n, 97))       # scattered tombstones
 
-    ids_ici, sc_ici = idx.scan_route(queries, limit=L, approx=False)
+    ids_dev, sc_dev = idx.scan_route(queries, limit=L, approx=False)
     idx.merge_backend = "host"
     ids_host, sc_host = idx.scan_route(queries, limit=L, approx=False)
-    np.testing.assert_array_equal(np.asarray(ids_ici), ids_host)
-    np.testing.assert_array_equal(np.asarray(sc_ici), sc_host)
+    np.testing.assert_array_equal(np.asarray(ids_dev), ids_host)
+    np.testing.assert_array_equal(np.asarray(sc_dev), sc_host)
 
     # approx path too (same approx_max_k inputs -> same outputs per shard)
-    idx.merge_backend = "ici"
+    idx.merge_backend = "device"
     a_ids, a_sc = idx.scan_route(queries, limit=L, approx=True)
     idx.merge_backend = "host"
     b_ids, b_sc = idx.scan_route(queries, limit=L, approx=True)

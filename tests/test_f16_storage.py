@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from fspann_tpu.api.system import ForwardSecureANNSystem
-from fspann_tpu.config import (EvalConfig, PaperConfig, RuntimeConfig,
+from fspann.api.system import ForwardSecureANNSystem
+from fspann.config import (EvalConfig, PaperConfig, RuntimeConfig,
                                SystemConfig)
-from fspann_tpu.crypto.keys import KeyManager
-from fspann_tpu.io import groundtruth
-from fspann_tpu.store.point_store import PointStore
+from fspann.crypto.keys import KeyManager
+from fspann.io import groundtruth
+from fspann.store.point_store import PointStore
 
 DIM = 16
 

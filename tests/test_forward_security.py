@@ -11,13 +11,13 @@ exact, and deletion is blocked while ciphertexts remain bound.
 import numpy as np
 import pytest
 
-from fspann_tpu.crypto import aesgcm
-from fspann_tpu.crypto.keys import KeyManager
-from fspann_tpu.crypto.rotation import (BackgroundReencryption,
+from fspann.crypto import aesgcm
+from fspann.crypto.keys import KeyManager
+from fspann.crypto.rotation import (BackgroundReencryption,
                                         KeyRotationService, ReencryptionTracker,
                                         RotationPolicy)
-from fspann_tpu.store.point_store import PointStore
-from fspann_tpu.types import aad_for
+from fspann.store.point_store import PointStore
+from fspann.types import aad_for
 
 
 @pytest.fixture
@@ -253,7 +253,7 @@ def test_g1_prime_stolen_keystore_cannot_rederive_deleted(system, tmp_path):
     for v in adv.live_versions():
         assert adv.get_version(v).key != k1
     # ... and none opens the old arena snapshot under the true AAD
-    from fspann_tpu.store.arena import ArenaReader
+    from fspann.store.arena import ArenaReader
     reader = ArenaReader(str(arena_snapshot))
     pid, rkv, dim, iv, ct = reader.read_record(0)
     assert rkv == 1

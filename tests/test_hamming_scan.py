@@ -1,11 +1,11 @@
-"""MXU Hamming scan (ops/hamming_scan.py): oracle + system-level tests."""
+"""Hamming scan (ops/hamming_scan.py): oracle + system-level tests."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from fspann_tpu.ops import coding, hamming_scan
+from fspann.ops import coding, hamming_scan
 
 
 def _mk(rng, n=500, d=24, m=10, lam=2, tables=2, divisions=2, seed=3):
@@ -88,10 +88,10 @@ def test_scan_approx_overlaps_exact(rng):
 def test_scan_system_pipeline_and_restore(tmp_path, rng):
     """routing_mode=scan end-to-end: recall, decrypt budget, fast-restore
     equality."""
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import (SystemConfig, PaperConfig, RuntimeConfig,
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import (SystemConfig, PaperConfig, RuntimeConfig,
                                    EvalConfig)
-    from fspann_tpu.io import groundtruth
+    from fspann.io import groundtruth
 
     dim, n = 16, 1500
     centers = rng.normal(size=(16, dim)).astype(np.float32) * 5
@@ -137,8 +137,8 @@ def test_scan_results_invariant_across_rotation(tmp_path, rng):
     """Scan-mode serving x forward security: rotation + selective
     re-encryption of the touched set leaves results bit-identical (the scan
     state is routing state — ciphertext migration cannot perturb it)."""
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import (SystemConfig, PaperConfig, RuntimeConfig,
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import (SystemConfig, PaperConfig, RuntimeConfig,
                                    EvalConfig)
 
     dim, n = 16, 1200
@@ -173,8 +173,8 @@ def test_scan_results_invariant_across_rotation(tmp_path, rng):
 def test_live_insert_after_finalize(tmp_path, rng):
     """insert_live: post-finalize points are searchable immediately (scan
     mode), survive fast restore, and the stale probe path refuses."""
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import (SystemConfig, PaperConfig, RuntimeConfig,
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import (SystemConfig, PaperConfig, RuntimeConfig,
                                    EvalConfig)
 
     dim, n = 16, 1200
@@ -266,8 +266,8 @@ def test_scan_chunked_matches_flat_exact(rng):
 
 def test_scan_system_delete_and_undelete(tmp_path, rng):
     """delete/undelete visibility flows through the scan's tombstone mask."""
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import (SystemConfig, PaperConfig, RuntimeConfig,
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import (SystemConfig, PaperConfig, RuntimeConfig,
                                    EvalConfig)
 
     dim, n = 16, 900
@@ -359,9 +359,9 @@ def test_packed_system_end_to_end(tmp_path, rng):
     live insert appends packed words, checkpoint restore preserves the
     packed layout choice."""
     import dataclasses
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig
-    from fspann_tpu.ops import hamming_scan as hs
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import SystemConfig, PaperConfig, RuntimeConfig
+    from fspann.ops import hamming_scan as hs
 
     n, d, q, k = 3000, 16, 6, 10
     base = rng.normal(size=(n, d)).astype(np.float32) * 4

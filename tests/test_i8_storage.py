@@ -11,12 +11,12 @@ beyond-reference storage option, ARCHITECTURE.md "storage dtypes".
 
 import numpy as np
 
-from fspann_tpu.api.system import ForwardSecureANNSystem
-from fspann_tpu.config import (EvalConfig, PaperConfig, RuntimeConfig,
+from fspann.api.system import ForwardSecureANNSystem
+from fspann.config import (EvalConfig, PaperConfig, RuntimeConfig,
                                SystemConfig)
-from fspann_tpu.crypto.keys import KeyManager
-from fspann_tpu.io import groundtruth
-from fspann_tpu.store.point_store import PointStore
+from fspann.crypto.keys import KeyManager
+from fspann.io import groundtruth
+from fspann.store.point_store import PointStore
 
 DIM = 16
 
@@ -225,7 +225,7 @@ def test_mesh_i8_scan_recall_and_stream_equality(tmp_path, rng):
     decodes), serving recall holds, and streamed build == one-shot build."""
     import jax
     import pytest
-    from fspann_tpu.parallel.serving import DistributedEncryptedSystem
+    from fspann.parallel.serving import DistributedEncryptedSystem
     if len(jax.devices()) < 2:
         pytest.skip("needs multi-device mesh")
 

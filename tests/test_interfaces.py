@@ -2,15 +2,15 @@
 
 import os
 
-from fspann_tpu import interfaces as I
-from fspann_tpu.crypto.keys import KeyManager
-from fspann_tpu.crypto.rotation import KeyRotationService
-from fspann_tpu.index.service import PartitionedIndex
-from fspann_tpu.config import SystemConfig
-from fspann_tpu.store.metadata import MetadataLog
-from fspann_tpu.store.point_store import PointStore
-from fspann_tpu.store.sharded_store import ShardedPointStore
-from fspann_tpu.utils.paths import FsPaths
+from fspann import interfaces as I
+from fspann.crypto.keys import KeyManager
+from fspann.crypto.rotation import KeyRotationService
+from fspann.index.service import PartitionedIndex
+from fspann.config import SystemConfig
+from fspann.store.metadata import MetadataLog
+from fspann.store.point_store import PointStore
+from fspann.store.sharded_store import ShardedPointStore
+from fspann.utils.paths import FsPaths
 
 
 def test_protocol_conformance(tmp_path):

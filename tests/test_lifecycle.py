@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from fspann_tpu.api.system import ForwardSecureANNSystem
-from fspann_tpu.config import (EvalConfig, PaperConfig, RuntimeConfig,
+from fspann.api.system import ForwardSecureANNSystem
+from fspann.config import (EvalConfig, PaperConfig, RuntimeConfig,
                                SystemConfig)
-from fspann_tpu.store.write_buffer import BufferedInserter
+from fspann.store.write_buffer import BufferedInserter
 
 DIM = 12
 
@@ -167,7 +167,7 @@ def test_immediate_reencryption_mode(tmp_path, rng):
     the current key version right away, results unchanged
     (reference ForwardSecureANNSystem.java:1345-1360)."""
     import dataclasses
-    from fspann_tpu.config import ReencryptionConfig
+    from fspann.config import ReencryptionConfig
     base_cfg = cfg()
     imm = dataclasses.replace(
         base_cfg, reencryption=ReencryptionConfig(mode="immediate"))

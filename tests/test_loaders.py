@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from fspann_tpu.io import groundtruth, loaders
+from fspann.io import groundtruth, loaders
 
 
 def write_fvecs(path, arr):
@@ -126,7 +126,7 @@ def test_gt_save_load_roundtrip(tmp_path, rng):
 
 
 def test_decoy_generator(rng):
-    from fspann_tpu.query.decoy import DecoyGenerator
+    from fspann.query.decoy import DecoyGenerator
     gen = DecoyGenerator(dim=16, rate=0.5)
     real = rng.normal(size=(40, 16)).astype(np.float32) * 3
     mixed, src = gen.interleave(real)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from fspann_tpu.api.multidim import MultiDimSystem
-from fspann_tpu.config import (EvalConfig, PaperConfig, RuntimeConfig,
+from fspann.api.multidim import MultiDimSystem
+from fspann.config import (EvalConfig, PaperConfig, RuntimeConfig,
                                SystemConfig)
 
 
@@ -70,7 +70,7 @@ def test_multidim_background_reencryption_shares_keystore(tmp_path, rng):
     must migrate against the SHARED keystore (the round-1 attribute swap
     left daemons holding a throwaway one)."""
     import dataclasses
-    from fspann_tpu.config import ReencryptionConfig
+    from fspann.config import ReencryptionConfig
     cfg = dataclasses.replace(
         small_cfg(),
         reencryption=ReencryptionConfig(background_enabled=True,
@@ -97,8 +97,8 @@ def test_multidim_scan_mode(tmp_path, rng):
     """MultiDimSystem serves scan-mode sub-systems off one shared keystore."""
     import dataclasses
 
-    from fspann_tpu.api.multidim import MultiDimSystem
-    from fspann_tpu.config import (SystemConfig, PaperConfig, RuntimeConfig,
+    from fspann.api.multidim import MultiDimSystem
+    from fspann.config import (SystemConfig, PaperConfig, RuntimeConfig,
                                    EvalConfig)
 
     cfg = SystemConfig(

@@ -2,8 +2,8 @@
 
 The kernel must be bit-interchangeable with the device scan: same Hamming
 scores, same (score, id)-ascending order, same RouteResult contract
-(-1/INT32_MAX pads, adaptive decrypt budget), so CPU-fallback serving and
-TPU serving return identical results for identical requests.
+(-1/INT32_MAX pads, adaptive decrypt budget), so CPU serving and GPU
+serving return identical results for identical requests.
 """
 
 import dataclasses
@@ -13,7 +13,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from fspann_tpu.ops import coding, hamming_scan, native_scan
+from fspann.ops import coding, hamming_scan, native_scan
 
 pytestmark = pytest.mark.skipif(not native_scan.available(),
                                 reason="native scan library not buildable")
@@ -123,8 +123,8 @@ def test_threads_do_not_change_results(rng):
 def test_index_service_native_equals_xla(rng, tmp_path):
     """route_batch(scan_native='on') ≡ route_batch(scan_native='off')
     end to end through the index service, including tombstones."""
-    from fspann_tpu.config import SystemConfig
-    from fspann_tpu.index.service import PartitionedIndex
+    from fspann.config import SystemConfig
+    from fspann.index.service import PartitionedIndex
 
     def build(scan_native):
         cfg = SystemConfig()
@@ -158,8 +158,8 @@ def test_restore_preserves_native_results(rng, tmp_path):
     """save_table → fresh index → load_table: the native backend returns
     the same ranking from restored packed codes (the routing state is a
     deterministic function of seed + config + persisted codes)."""
-    from fspann_tpu.config import SystemConfig
-    from fspann_tpu.index.service import PartitionedIndex
+    from fspann.config import SystemConfig
+    from fspann.index.service import PartitionedIndex
 
     cfg = SystemConfig()
     cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
@@ -185,7 +185,7 @@ def test_restore_preserves_native_results(rng, tmp_path):
 
 
 def test_scan_native_config_validation():
-    from fspann_tpu.config import SystemConfig
+    from fspann.config import SystemConfig
     cfg = SystemConfig()
     with pytest.raises(ValueError, match="scan_native"):
         dataclasses.replace(cfg, runtime=dataclasses.replace(

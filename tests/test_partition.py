@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fspann_tpu.ops import partition
+from fspann.ops import partition
 from oracles import oracle_partitions
 
 

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fspann_tpu.ops import refine
+from fspann.ops import refine
 
 
 def test_refine_matches_numpy(rng):
@@ -51,7 +51,7 @@ def test_host_refine_scored_matches_unfused_oracle(rng):
     """_host_refine_scored (stage C from fused C-loop norms+dots) must equal
     the vector-based _host_refine oracle bit-for-bit when fed consistent
     inputs."""
-    from fspann_tpu.query.service import _host_refine, _host_refine_scored
+    from fspann.query.service import _host_refine, _host_refine_scored
     import numpy as np
 
     q, r, d, k = 5, 64, 16, 10

@@ -8,12 +8,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from fspann_tpu.api.system import ForwardSecureANNSystem
-from fspann_tpu.config import (KAdaptiveConfig, SystemConfig, PaperConfig,
+from fspann.api.system import ForwardSecureANNSystem
+from fspann.config import (KAdaptiveConfig, SystemConfig, PaperConfig,
                                RuntimeConfig, EvalConfig)
-from fspann_tpu.crypto.rotation import ReencryptionTracker, RotationRefused
-from fspann_tpu.io import groundtruth
-from fspann_tpu.ops import coding, partition, routing
+from fspann.crypto.rotation import ReencryptionTracker, RotationRefused
+from fspann.io import groundtruth
+from fspann.ops import coding, partition, routing
 
 DIM = 16
 N = 1200
@@ -125,7 +125,7 @@ def test_force_rotate_refused_when_pinned(tmp_path, corpus):
 
 
 def test_multidim_pinned_refuses_global_rotation(tmp_path, corpus):
-    from fspann_tpu.api.multidim import MultiDimSystem
+    from fspann.api.multidim import MultiDimSystem
 
     base, _ = corpus
     md = MultiDimSystem(scan_cfg(), str(tmp_path / "md"))
@@ -230,7 +230,7 @@ def test_decoy_interleaving_preserves_real_metrics(tmp_path, corpus):
     """VERDICT r2 missing 1: decoys must flow through the FULL pipeline
     while recall/ratio are computed on real queries only — and the decoy
     traffic must measurably dilute the touched-id set (the cloak)."""
-    from fspann_tpu.query.decoy import DecoyGenerator
+    from fspann.query.decoy import DecoyGenerator
 
     base, queries = corpus
     gtm = groundtruth.precompute(base, queries, k=10)
@@ -270,7 +270,7 @@ def test_decoy_interleaving_preserves_real_metrics(tmp_path, corpus):
 
 
 def test_aggregates_from_profiler_matches_from_rows(tmp_path, corpus):
-    from fspann_tpu.query.aggregates import Aggregates
+    from fspann.query.aggregates import Aggregates
 
     base, queries = corpus
     sys_ = ForwardSecureANNSystem(scan_cfg(), str(tmp_path / "agg"), DIM,
@@ -321,8 +321,8 @@ def test_fspann_threads_batch_open_identical(tmp_path, rng, monkeypatch):
     and fused norms for a batch large enough (>=1024) to engage the
     pthread split (VERDICT r2 weak 8 — scaling itself needs a multi-core
     serving host; correctness of the split is what this host can check)."""
-    from fspann_tpu.crypto.keys import KeyManager
-    from fspann_tpu.store.point_store import PointStore
+    from fspann.crypto.keys import KeyManager
+    from fspann.store.point_store import PointStore
 
     n, d = 2000, 24
     km = KeyManager(str(tmp_path / "ks.blob"))
@@ -348,7 +348,7 @@ def test_profiler_rows_external_clear_cannot_desync():
     """``profiler.rows`` returns a detached list: mutating it (the old
     ``rows.clear()`` idiom) must neither hide block-stored rows nor let
     'cleared' rows resurface after the cache invalidates."""
-    from fspann_tpu.utils.profiler import ROW_FIELDS, Profiler
+    from fspann.utils.profiler import ROW_FIELDS, Profiler
 
     p = Profiler()
     blk = {f: np.zeros(3) for f in ROW_FIELDS}

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fspann_tpu.query.service import _pack24, _unpack24, _PACK24_MAX
+from fspann.query.service import _pack24, _unpack24, _PACK24_MAX
 
 
 def test_pack24_roundtrip_edges():
@@ -26,8 +26,8 @@ def test_packed_transfer_results_identical(tmp_path, rng, monkeypatch):
     are bit-identical to the unpacked path."""
     import dataclasses
 
-    from fspann_tpu.api.system import ForwardSecureANNSystem
-    from fspann_tpu.config import SystemConfig
+    from fspann.api.system import ForwardSecureANNSystem
+    from fspann.config import SystemConfig
 
     base = rng.normal(size=(3000, 16)).astype(np.float32)
     queries = base[:8] + 0.01 * rng.normal(size=(8, 16)).astype(np.float32)
@@ -60,8 +60,8 @@ def test_short_open_path_boundaries(tmp_path, rng):
     blocks and must agree with the generic path bit-for-bit; dims around
     the table boundary (f32 dim 500 = exactly 128 blocks, dim 600 falls
     back) and odd partial-block bodies (i8) all roundtrip."""
-    from fspann_tpu.crypto.keys import KeyManager
-    from fspann_tpu.store.point_store import PointStore
+    from fspann.crypto.keys import KeyManager
+    from fspann.store.point_store import PointStore
 
     km = KeyManager(str(tmp_path / "ks"))
     for dim, dtype in ((1, "f32"), (3, "i8"), (31, "f16"), (128, "f32"),

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fspann_tpu.ops import coding, partition, routing
+from fspann.ops import coding, partition, routing
 from oracles import (oracle_find_nearest, oracle_partitions, oracle_route)
 
 

@@ -10,8 +10,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from fspann_tpu.api.system import ForwardSecureANNSystem
-from fspann_tpu.config import (EvalConfig, PaperConfig, RuntimeConfig,
+from fspann.api.system import ForwardSecureANNSystem
+from fspann.config import (EvalConfig, PaperConfig, RuntimeConfig,
                                SystemConfig)
 
 

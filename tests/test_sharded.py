@@ -5,8 +5,8 @@ import pytest
 
 import jax
 
-from fspann_tpu.ops import coding, refine
-from fspann_tpu.parallel.sharded import ShardedIndex, make_mesh
+from fspann.ops import coding, refine
+from fspann.parallel.sharded import ShardedIndex, make_mesh
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multi-device mesh")

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from fspann_tpu.crypto.keys import KeyManager
-from fspann_tpu.store.metadata import MetadataLog
-from fspann_tpu.store.point_store import PointStore
+from fspann.crypto.keys import KeyManager
+from fspann.store.metadata import MetadataLog
+from fspann.store.point_store import PointStore
 
 
 @pytest.fixture

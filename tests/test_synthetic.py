@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from fspann_tpu.io.synthetic import easy_corpus, lsh_hard_corpus
+from fspann.io.synthetic import easy_corpus, lsh_hard_corpus
 
 
 def test_shapes_and_determinism():
@@ -36,7 +36,7 @@ def test_hard_is_harder_than_easy():
 
 
 def test_cluster_sizes_heavy_tailed():
-    from fspann_tpu.io.synthetic import _zipf_sizes
+    from fspann.io.synthetic import _zipf_sizes
     rng = np.random.default_rng(0)
     sizes = _zipf_sizes(rng, 200, 100_000, a=1.1)
     assert sizes.sum() == 100_000
@@ -46,7 +46,7 @@ def test_cluster_sizes_heavy_tailed():
 
 
 def test_glove_like_properties():
-    from fspann_tpu.io.synthetic import glove_like_corpus
+    from fspann.io.synthetic import glove_like_corpus
 
     base, queries = glove_like_corpus(5000, 100, 50, seed=7)
     b2, q2 = glove_like_corpus(5000, 100, 50, seed=7)
@@ -65,7 +65,7 @@ def test_glove_like_properties():
 
 
 def test_redcaps_like_properties():
-    from fspann_tpu.io.synthetic import redcaps_like_corpus
+    from fspann.io.synthetic import redcaps_like_corpus
 
     base, queries = redcaps_like_corpus(5000, 512, 50, seed=7)
     assert base.shape == (5000, 512) and queries.shape == (50, 512)

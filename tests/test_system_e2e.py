@@ -5,9 +5,9 @@ index → finalize → encrypted query → selective re-encryption → restore.
 import numpy as np
 import pytest
 
-from fspann_tpu.api.system import ForwardSecureANNSystem
-from fspann_tpu.config import SystemConfig, PaperConfig, RuntimeConfig, EvalConfig
-from fspann_tpu.io import groundtruth
+from fspann.api.system import ForwardSecureANNSystem
+from fspann.config import SystemConfig, PaperConfig, RuntimeConfig, EvalConfig
+from fspann.io import groundtruth
 
 
 DIM = 16
@@ -193,8 +193,8 @@ def test_system_level_forward_security_game(tmp_path, corpus):
     ForwardSecurityAdversarialIT): an adversary snapshots the current
     session key, queries touch a candidate set, S-R.E migrates exactly the
     touched set, and the snapshot decrypts none of the migrated records."""
-    from fspann_tpu.crypto import aesgcm
-    from fspann_tpu.types import aad_for
+    from fspann.crypto import aesgcm
+    from fspann.types import aad_for
 
     base, queries = corpus
     sys_ = make_system(tmp_path)
@@ -352,7 +352,7 @@ def test_token_under_deleted_key_version_rejected(tmp_path, corpus):
         assert sys_.rotation.finalize_rotation() == [1]
         # diagnosable error, not a downstream tag-verification failure:
         # the service refuses retired/unknown token key versions up front
-        from fspann_tpu.query.service import StaleTokenError
+        from fspann.query.service import StaleTokenError
         with pytest.raises(StaleTokenError, match="retired or unknown"):
             sys_.search(old_tok)
         # fresh tokens still work

@@ -24,7 +24,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fspann_tpu.ops import coding, partition, routing
+from fspann.ops import coding, partition, routing
 
 
 def _random_codes(rng, n, g, w):
@@ -209,8 +209,8 @@ def test_service_wide_table_save_load_roundtrip(tmp_path):
     fast path (returns False -> caller rebuilds)."""
     import dataclasses
 
-    from fspann_tpu.config import SystemConfig
-    from fspann_tpu.index.service import PartitionedIndex
+    from fspann.config import SystemConfig
+    from fspann.index.service import PartitionedIndex
 
     rng = np.random.default_rng(8)
     base, queries = _clustered(rng, 2000, 16)
@@ -253,7 +253,7 @@ def test_mesh_wide_matches_single_chip():
     candidates at lambda=3 with wide on)."""
     from jax.sharding import Mesh
 
-    from fspann_tpu.parallel.sharded import ShardedIndex
+    from fspann.parallel.sharded import ShardedIndex
 
     devs = np.array(jax.devices("cpu")[:4])
     if devs.size < 4:
