@@ -277,6 +277,8 @@ class SystemConfig:
                              f"got {rt.scan_native!r}")
         if rt.scan_capacity_rows < 0:
             raise ValueError("scan_capacity_rows must be >= 0")
+        if rt.mesh_merge == "ici":   # deprecated name of "device"
+            rt = dataclasses.replace(rt, mesh_merge="device")
         if rt.mesh_merge not in ("device", "host"):
             raise ValueError(f"mesh_merge must be device/host, "
                              f"got {rt.mesh_merge!r}")

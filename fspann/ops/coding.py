@@ -229,7 +229,7 @@ def keys2_from_codes(codes: jax.Array) -> jax.Array:
     the first 63 code bits, so at ``m*lam > 63`` (e.g. lambda=3 ladders, or
     the m=64 scan-parity geometry's 128-bit codes) the partition order is
     arbitrary within 63-bit ties.  Round-5 diagnostic
-    (bench_results/diag_lambda3.jsonl): on the glove family at lambda=3 the
+    (scripts/diag_lambda3.py): on the glove family at lambda=3 the
     full-code order recovers the ENTIRE truncation loss (r@100 0.5752 →
     0.6817 ≡ the lambda=2 point).  Sorting by the (key, key2) pair restores
     the exact code-prefix order up to 126 bits; for ``m*lam <= 63`` the

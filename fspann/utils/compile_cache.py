@@ -2,8 +2,10 @@
 
 ``JAX_COMPILATION_CACHE_DIR``, when set, is JAX's own setting and wins: the
 cache lives there and nothing else is configured.  Otherwise the cache goes
-to the fixed ``<repo>/.jax_cache`` (git-ignored).  The path is part of the
-cache key, so a fixed path is what lets a later process hit it.
+to the fixed ``<repo>/.jax_cache`` (git-ignored).  An entry is keyed by the
+computation, the compile options, the backend and the JAX version, not by
+where it lives; a fixed directory is what lets a later process look where an
+earlier one wrote.
 """
 
 from __future__ import annotations

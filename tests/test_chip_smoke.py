@@ -91,6 +91,71 @@ def test_compare_topl_detects_wrong_scores():
                                 codes, qc)
 
 
+def _toy_bank(r00=None):
+    from fspann.ops import coding
+
+    bank = coding.build_random_bank(d=16, m=16, lam=2, tables=2,
+                                    divisions=2, seed=5)
+    if r00 is None:
+        return bank
+    r = np.array(bank.r)
+    r[0, 0] = r00
+    return coding.GBank(bank.alpha, r, bank.omega, bank.m, bank.lam,
+                        bank.tables, bank.divisions, bank.seed)
+
+
+def test_host_codes_checked_accepts_equal_codes():
+    from fspann.ops import coding
+
+    x = np.random.default_rng(1).normal(size=(2000, 16)).astype(np.float32)
+    bank = _toy_bank()
+    dev, _ = coding.encode_numpy(x, bank)
+    codes, differ = chip_smoke.host_codes_checked(x, bank, dev, "toy")
+    assert differ == 0 and np.array_equal(codes, dev)
+
+
+def test_host_codes_checked_rejects_misplaced_rows():
+    from fspann.ops import coding
+
+    x = np.random.default_rng(2).normal(size=(2000, 16)).astype(np.float32)
+    bank = _toy_bank()
+    dev, _ = coding.encode_numpy(x, bank)
+    dev[[3, 4]] = dev[[4, 3]]          # two rows swapped between positions
+    with pytest.raises(chip_smoke.SmokeFailure, match="bucket edge"):
+        chip_smoke.host_codes_checked(x, bank, dev, "toy")
+    dev[:500] = dev[500:1000]          # a whole block misplaced
+    with pytest.raises(chip_smoke.SmokeFailure, match="rows differ"):
+        chip_smoke.host_codes_checked(x, bank, dev, "toy")
+
+
+def test_host_codes_checked_takes_bucket_edge_flips():
+    from fspann.ops import coding
+
+    x = np.random.default_rng(3).normal(size=(2000, 16)).astype(np.float32)
+    y0 = float(np.dot(x[0].astype(np.float64),
+                      np.asarray(_toy_bank().alpha[0, 0], np.float64)))
+    # row 0's first projection lands 3e-6 above bucket 7 on the host and
+    # 3e-6 below it on the "device"
+    host = _toy_bank(np.float32(7.000003 - y0))
+    dev_bank = _toy_bank(np.float32(6.999997 - y0))
+    dev, _ = coding.encode_numpy(x, dev_bank)
+    codes, differ = chip_smoke.host_codes_checked(x, host, dev, "toy")
+    assert differ >= 1
+    assert np.array_equal(codes, dev)
+    assert not np.array_equal(coding.encode_numpy(x[:1], host)[0], dev[:1])
+
+
+def test_bucket_indices_inverts_packing():
+    from fspann.ops import coding
+
+    bank = _toy_bank()
+    x = np.random.default_rng(4).normal(size=(64, 16)).astype(np.float32)
+    codes, _ = coding.encode_numpy(x, bank)
+    h = np.asarray(coding.project_h(x, bank)).astype(np.int64)
+    assert np.array_equal(chip_smoke._bucket_indices(codes, bank.m, bank.lam),
+                          h % (1 << bank.lam))
+
+
 def test_lowering_summary_reads_library_calls():
     hlo = ('%c = (s32[64,8]) custom-call(%a), '
            'custom_call_target="__cub$DeviceRadixSort"\n'

@@ -119,3 +119,16 @@ def test_routing_mode_alias_and_validation():
     bad = SystemConfig(runtime=RuntimeConfig(routing_mode="warp"))
     with pytest.raises(ValueError, match="routing_mode"):
         bad.validate()
+
+
+def test_mesh_merge_values_and_deprecated_alias(tmp_path):
+    from fspann.config import RuntimeConfig
+
+    p = tmp_path / "c.json"
+    p.write_text(json.dumps({"runtime": {"mesh_merge": "ici"}}))
+    assert load_config(str(p)).runtime.mesh_merge == "device"
+    for v in ("device", "host"):
+        cfg = SystemConfig(runtime=RuntimeConfig(mesh_merge=v)).validate()
+        assert cfg.runtime.mesh_merge == v
+    with pytest.raises(ValueError, match="mesh_merge"):
+        SystemConfig(runtime=RuntimeConfig(mesh_merge="nccl")).validate()

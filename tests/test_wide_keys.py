@@ -4,7 +4,7 @@ past the reference's 63-bit key truncation.
 The reference's ``computeKey`` (GreedyPartitioner.java:87-96) keeps only the
 first 63 interleaved code bits, so at ``lambda*m > 63`` the partition order
 is arbitrary within 63-bit ties.  Round-5 diagnostic
-(bench_results/diag_lambda3.jsonl): on the glove family at lambda=3 the full
+(scripts/diag_lambda3.py): on the glove family at lambda=3 the full
 order recovers the ENTIRE truncation loss.  These tests pin the mechanism:
 
 * key2 bit extraction against a numpy bit oracle;
